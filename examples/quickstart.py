@@ -13,7 +13,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import riptrm_tpu.config
 
 # Parity runs use CPU + float64 (reference tolerances reach 1e-16).
-# For TPU throughput runs drop cpu=True and build problems in float32.
+# On a GPU drop cpu=True (the H100 runs float64 natively); batched
+# throughput sweeps build problems in float32.
 riptrm_tpu.config.setup(cpu=True, x64=True)
 
 import jax.numpy as jnp  # noqa: E402

@@ -1,4 +1,4 @@
-"""riptrm_tpu — a TPU-native framework for Riemannian inequality-constrained optimization.
+"""riptrm_tpu — an accelerator-native framework for Riemannian inequality-constrained optimization.
 
 A from-scratch JAX/XLA re-design (NOT a port) of the capabilities of
 shirokumakur0/Riemannian-interior-point-trust-region-method:
@@ -16,7 +16,7 @@ shirokumakur0/Riemannian-interior-point-trust-region-method:
   compiled, vmappable solves.
 - ``ops``: tangent-space linear algebra (batched basis materialization,
   truncated CG, Moré-Sorensen TRS, conjugate residual, a jittable QP IPM,
-  spectra, Pallas TPU kernels).
+  spectra).
 - ``experiment``: config / generator / simulator / analyzer / benchmark
   pipeline preserving the reference's CSV dataset contract, plus
   checkpoint/resume.

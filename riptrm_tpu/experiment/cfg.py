@@ -10,6 +10,11 @@ interpolation, and a ``sweeper.params`` block for multirun.
 
 CLI override grammar (Hydra-like): ``key=value`` (dots for nesting); with
 ``-m``/``--multirun``, comma-separated values sweep the cross product.
+
+The YAML reader is a small loader for the subset ``configs/*/*.yaml`` use
+(nested block maps, inline flow lists, quoted and plain scalars, comments),
+resolving plain scalars as PyYAML's ``safe_load`` does (YAML 1.1), so the
+package needs no YAML library.
 """
 
 from __future__ import annotations
@@ -18,7 +23,168 @@ import itertools
 import re
 from typing import Any, Dict, List
 
-import yaml
+# YAML 1.1 implicit scalar types, as PyYAML's resolver reads them (decimal
+# integers only; octal, hex, binary and sexagesimal forms stay strings).
+_YAML_BOOL = {
+    **dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE",
+                     "on", "On", "ON"), True),
+    **dict.fromkeys(("no", "No", "NO", "false", "False", "FALSE",
+                     "off", "Off", "OFF"), False),
+}
+_YAML_NULL = ("", "~", "null", "Null", "NULL")
+_YAML_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
+_YAML_FLOAT = re.compile(
+    r"^(?:[-+]?[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?"
+    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?)$"
+)
+_YAML_INF = re.compile(r"^([-+]?)\.(?:inf|Inf|INF)$")
+_YAML_NAN = (".nan", ".NaN", ".NAN")
+_DQ_ESCAPES = {"n": "\n", "t": "\t", '"': '"', "\\": "\\", "/": "/", "0": "\0"}
+
+
+def _plain_scalar(s: str):
+    """Resolve an unquoted scalar the way PyYAML's safe_load does."""
+    if s in _YAML_NULL:
+        return None
+    if s in _YAML_BOOL:
+        return _YAML_BOOL[s]
+    if _YAML_INT.match(s):
+        return int(s.replace("_", ""))
+    if _YAML_FLOAT.match(s):
+        return float(s.replace("_", ""))
+    m = _YAML_INF.match(s)
+    if m:
+        return float(m.group(1) + "inf")
+    if s in _YAML_NAN:
+        return float("nan")
+    return s
+
+
+def _quoted(s: str, i: int):
+    """Quoted scalar starting at s[i] -> (string, index after it)."""
+    quote, out, i = s[i], [], i + 1
+    while i < len(s):
+        ch = s[i]
+        if quote == "'" and ch == "'":
+            if s[i + 1:i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            return "".join(out), i + 1
+        if quote == '"' and ch == "\\":
+            esc = s[i + 1:i + 2]
+            if esc not in _DQ_ESCAPES:
+                raise ValueError(f"unsupported YAML escape \\{esc} in {s!r}")
+            out.append(_DQ_ESCAPES[esc])
+            i += 2
+            continue
+        if quote == '"' and ch == '"':
+            return "".join(out), i + 1
+        out.append(ch)
+        i += 1
+    raise ValueError(f"unterminated quoted YAML scalar: {s!r}")
+
+
+def _flow_value(s: str, i: int = 0, in_flow: bool = False):
+    """Scalar or inline ``[...]`` list starting at s[i] -> (value, index)."""
+    while i < len(s) and s[i] == " ":
+        i += 1
+    if s[i:i + 1] == "[":
+        items, i = [], i + 1
+        while True:
+            while i < len(s) and s[i] == " ":
+                i += 1
+            if s[i:i + 1] == "]":
+                return items, i + 1
+            item, i = _flow_value(s, i, in_flow=True)
+            items.append(item)
+            while i < len(s) and s[i] == " ":
+                i += 1
+            if s[i:i + 1] == ",":
+                i += 1
+            elif s[i:i + 1] != "]":
+                raise ValueError(f"malformed YAML flow list: {s!r}")
+    if s[i:i + 1] in ("'", '"'):
+        return _quoted(s, i)
+    if s[i:i + 1] and s[i] in "{&*!|>%@`":
+        raise ValueError(f"YAML construct outside the supported subset: {s!r}")
+    j = i
+    while j < len(s) and not (in_flow and s[j] in ",[]{}"):
+        j += 1
+    return _plain_scalar(s[i:j].strip()), j
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a ``#`` comment that starts the line or follows whitespace,
+    outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in ("'", '"'):
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _split_key(text: str):
+    """``key: rest`` -> (key, rest); the colon must end the line or be
+    followed by a space, outside quotes."""
+    quote = None
+    for i, ch in enumerate(text):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in ("'", '"'):
+            quote = ch
+        elif ch == ":" and text[i + 1:i + 2] in ("", " "):
+            key = text[:i].strip()
+            key = _quoted(key, 0)[0] if key[:1] in ("'", '"') else _plain_scalar(key)
+            return key, text[i + 1:].strip()
+    raise ValueError(f"expected 'key: value' in YAML line {text!r}")
+
+
+def _block_map(lines, i: int, indent: int):
+    out: Dict[Any, Any] = {}
+    while i < len(lines) and lines[i][0] == indent:
+        key, rest = _split_key(lines[i][1])
+        i += 1
+        if rest:
+            value, end = _flow_value(rest)
+            if rest[end:].strip():
+                raise ValueError(f"trailing text in YAML value {rest!r}")
+            out[key] = value
+        elif i < len(lines) and lines[i][0] > indent:
+            out[key], i = _block_map(lines, i, lines[i][0])
+        else:
+            out[key] = None
+    if i < len(lines) and lines[i][0] > indent:
+        raise ValueError(f"unexpected indentation in YAML line {lines[i][1]!r}")
+    return out, i
+
+
+def yaml_load(text: str):
+    """Parse the YAML subset of ``configs/*/*.yaml`` (see module doc);
+    anything outside it raises ValueError.  Empty input gives None, as in
+    PyYAML."""
+    lines = []
+    for raw in text.splitlines():
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        body = line.lstrip(" ")
+        if body.startswith(("\t", "- ", "{", "---", "...")) or body == "-":
+            raise ValueError(f"YAML construct outside the supported subset: {raw!r}")
+        lines.append((len(line) - len(body), body))
+    if not lines:
+        return None
+    value, i = _block_map(lines, 0, lines[0][0])
+    if i != len(lines):
+        raise ValueError(f"unexpected indentation in YAML line {lines[i][1]!r}")
+    return value
+
 
 _INTERP = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")
 
@@ -67,7 +233,11 @@ def _coerce(value):
 
 def _parse_scalar(s: str):
     """YAML-ish scalar parsing for CLI override values."""
-    return _coerce(yaml.safe_load(s))
+    s = _strip_comment(s).strip()
+    value, end = _flow_value(s)
+    if s[end:].strip():
+        raise ValueError(f"cannot parse override value {s!r}")
+    return _coerce(value)
 
 
 def _interpolate(value, root: Config):
@@ -93,7 +263,7 @@ def load_config(
     path: str, overrides: List[str] | None = None, interpolate: bool = True
 ) -> Config:
     with open(path) as f:
-        raw = _coerce(yaml.safe_load(f) or {})
+        raw = _coerce(yaml_load(f.read()) or {})
     cfg = Config(raw)
     for ov in overrides or []:
         if "=" not in ov:
@@ -115,7 +285,7 @@ def sweep_configs(path: str, overrides: List[str] | None = None) -> List[Config]
     (``README.md:72-107``).
     """
     with open(path) as f:
-        raw = yaml.safe_load(f) or {}
+        raw = yaml_load(f.read()) or {}
     base = Config(raw)
     params: Dict[str, list] = {}
     sweeper = base.get_path("sweeper.params") or base.get_path("hydra.sweeper.params") or {}

@@ -16,7 +16,7 @@ Notes:
 * the problem instance (e.g. the Z matrix) is a constant inside the
   artifact — one artifact serves one instance at a fixed batch size;
 * ``platforms`` may name cross-platform lowering targets (e.g.
-  ``["tpu", "cpu"]``) so a CPU build box can produce TPU artifacts.
+  ``["cuda", "cpu"]``) so a CPU build box can produce GPU artifacts.
 """
 
 from __future__ import annotations

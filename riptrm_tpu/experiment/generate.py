@@ -172,14 +172,11 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="[%(asctime)s][%(name)s] %(message)s")
     multirun = False
     config_path = None
-    force_cpu = True
     overrides = []
     it = iter(argv)
     for a in it:
         if a in ("-m", "--multirun"):
             multirun = True
-        elif a == "--no-force-cpu":
-            force_cpu = False
         elif a == "--config":
             config_path = next(it)
         elif a == "--problem":
@@ -188,13 +185,12 @@ def main(argv=None):
             overrides.append(a)
     if config_path is None:
         raise SystemExit("usage: generate (--config PATH | --problem NAME) [-m] [key=value ...]")
-    if force_cpu:
-        # Data generation is not a hot path; remote-TPU compiles of its
-        # one-shot graphs are slow and the StableIdentification generator
-        # embeds full RALM solves.  Opt out with --no-force-cpu.
-        from riptrm_tpu.config import setup
+    # Generation runs on the CPU backend by design: the same seed must give
+    # bit-identical instances on every machine, matching the shipped
+    # dataset/ CSVs (device RNG lowering and reduction order differ).
+    from riptrm_tpu.config import setup
 
-        setup(cpu=True)
+    setup(cpu=True)
     cfgs = sweep_configs(config_path, overrides) if multirun else [load_config(config_path, overrides)]
     for cfg in cfgs:
         logger.info("Generating %s instance %s", cfg.problem_name, cfg.instance_name)

@@ -6,7 +6,7 @@ processes (dataset sweeper ``instance_name: 1..10`` at
 simulation process per instance).  Here the whole sweep is ONE compiled
 vmapped solve: instance matrices Z are a traced batch axis through
 ``parallel.sweep.instance_batched_riptrm``, so 10 instances x their
-initial points solve together on the chip.
+initial points solve together on one device.
 
     python -m riptrm_tpu.experiment.paper_sweep            # default device
     python -m riptrm_tpu.experiment.paper_sweep --cpu      # x64 CPU
@@ -107,7 +107,7 @@ def main(argv=None):
             "tolresid": 2e-4,
             "TRS_solver": "tCG",
             "second_order_stationarity": False,
-            # f32 floors (BENCH.md precision notes)
+            # f32 floors (the reference's 1e-14 floors assume f64)
             "forcing_function_Lagrangian": lambda mu: jnp.maximum(mu, 1e-4),
             "forcing_function_complementarity": (
                 lambda mu: jnp.maximum(1e-3 * mu, 2e-4)

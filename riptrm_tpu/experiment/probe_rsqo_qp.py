@@ -1,8 +1,7 @@
 """Per-SQP-step QP iteration/status probe for the batched RSQO sweep.
 
 The chip-sweep CLI reports aggregate solves/s and residuals; this probe
-answers the companion question for the QP linear-solver A/B (VERDICT r3
-item 2): how many Mehrotra IPM iterations does each SQP step pay under
+answers the companion question for the QP linear-solver A/B: how many Mehrotra IPM iterations does each SQP step pay under
 each ``quadoptim_linear_solver`` flavor, and do any lanes freeze
 (status 2)?  It vmaps the raw RSQO step (``solvers/rsqo.py::make_step``,
 which surfaces ``quadoptim_iter``/``quadoptim_status`` in its info dict —
@@ -24,8 +23,6 @@ import time
 
 import numpy as np
 
-from riptrm_tpu.utils.retry import retry_transient
-
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
@@ -43,20 +40,18 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
 
-    import jax
+    from riptrm_tpu.config import setup
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    jax = setup(x64=False)
     jax.config.update("jax_default_matmul_precision", args.precision)
-    import jax.numpy as jnp
 
     from riptrm_tpu.experiment.chip_sweep import build_sweep
     from riptrm_tpu.solvers import rsqo
 
-    t0 = time.time()
+    t0 = time.perf_counter()
     problem, xs0, ys0 = build_sweep(args.problem, args.size, args.batch,
-                                    args.seed)
-    gen_s = time.time() - t0
+                                    args.seed, matmul_precision=args.precision)
+    gen_s = time.perf_counter() - t0
 
     opt = rsqo.RSQO({
         "maxiter": 60,
@@ -77,11 +72,12 @@ def main(argv=None):
         _, (iters, status) = jax.lax.scan(body, st0, None, length=args.steps)
         return iters, status  # [steps, B]
 
-    t0 = time.time()
-    iters, status = retry_transient(
-        lambda: jax.tree.map(np.asarray, run(st0)), label="probe_rsqo_qp"
+    compiled = run.lower(st0).compile()
+    t0 = time.perf_counter()
+    iters, status = jax.tree.map(
+        np.asarray, jax.block_until_ready(compiled(st0))
     )
-    run_s = time.time() - t0
+    run_s = time.perf_counter() - t0
     out = {
         "problem": args.problem,
         "size": args.size,
@@ -93,9 +89,9 @@ def main(argv=None):
         "qp_iter_by_step_mean": [round(float(r), 1) for r in iters.mean(axis=1)],
         "frozen_lane_steps": int((status == 2).sum()),
         "maxed_lane_steps": int((status == 1).sum()),
-        "gen_s": round(gen_s, 1),
-        "run_s": round(run_s, 1),
-        "device": str(jax.devices()[0]),
+        "gen_s": gen_s,
+        "run_s": run_s,
+        "device": jax.devices()[0].device_kind,
     }
     print(json.dumps(out))
 

@@ -1,8 +1,8 @@
 """Data-sharded vs plain step-time decomposition for large StableIdentification.
 
-VERDICT r4 item 1: the data-sharded StableId HVP step measured 2.97x the
-plain step time on the 8-device virtual CPU mesh at d=32 — but a virtual
-mesh on a 2-vCPU host conflates two very different costs:
+The data-sharded StableId HVP step measured 2.97x the plain step time on
+the 8-device virtual CPU mesh at d=32 (a 2-vCPU host) — but a virtual
+mesh on a small host conflates two very different costs:
 
 * **collective structure** — partition-induced communication/recompute
   that would also be paid on real chips, and
@@ -91,7 +91,7 @@ def _allreduce_latency(jax, jnp, mesh, d, lens=(50, 500), tries=5):
     """Marginal seconds per [d, d] all-reduce on the mesh: a data-dependent
     chain of psums via shard_map, timed at two lengths.  On a virtual CPU
     mesh this is the cross-thread rendezvous cost; on real chips it is the
-    ICI collective."""
+    collective."""
     from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
 

@@ -1,6 +1,6 @@
 """Manifold protocol: pure, jittable functions over pytrees.
 
-Design notes (TPU-first):
+Design notes:
 
 * Points and tangent vectors are pytrees of ``jnp`` arrays; every operation is
   a pure function usable under ``jit``/``vmap``/``shard_map``.
@@ -10,7 +10,7 @@ Design notes (TPU-first):
   them sequentially (``/root/reference/src/solver/utils.py:370-397``), which is
   O(dim^2) sequential metric inner products — hostile to a vector machine.
   Closed-form bases turn all operator<->matrix conversions into batched
-  ``vmap`` calls that XLA maps onto the MXU.
+  ``vmap`` calls that XLA maps onto batched matrix products.
 * ``to_coords``/``from_coords`` move between tangent vectors and coordinate
   vectors in R^dim under the metric-orthonormal basis.  All dense solver
   algebra (TRS, QP, eigendecompositions) happens in coordinates, where the

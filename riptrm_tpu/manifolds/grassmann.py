@@ -7,7 +7,7 @@ Parity target: ``pymanopt.manifolds.Grassmann`` as consumed by
 ``/root/reference/src/Rosenbrock/coordinator.py:36`` (polar retraction,
 principal-angle distance, projection-based gradient/Hessian conversion).
 
-TPU-first: tangent basis from one complete QR (the orthonormal completion
+Design: tangent basis from one complete QR (the orthonormal completion
 X_perp), so basis vectors are X_perp[:, k] e_j^T — closed form, batched.
 """
 

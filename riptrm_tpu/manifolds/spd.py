@@ -5,7 +5,7 @@ by ``/root/reference/src/StableIdentification/coordinator.py:39-40``
 (second-order retraction P + V + V P^{-1} V / 2, metric
 tr(P^{-1} U P^{-1} V), log-eigenvalue distance).
 
-TPU-first: the metric-orthonormal tangent basis is L S_k L^T with
+Design: the metric-orthonormal tangent basis is L S_k L^T with
 L = chol(P) and {S_k} the Frobenius-orthonormal symmetric basis — one
 batched congruence (two matmuls over the stacked basis) instead of
 Gram-Schmidt.
@@ -95,8 +95,8 @@ class SymmetricPositiveDefinite(Manifold):
         c_k = tr(x^{-1} (L S_k L^T) x^{-1} u) = <S_k, L^{-1} u L^{-T}>_F —
         TWO triangular solves total instead of the generic path's ``dim``
         vmapped metric inners (each a pair of cho_solves; the vmapped
-        batched triangular solve is column-sequential on TPU and dominated
-        the Jacobi-preconditioned CR iteration)."""
+        batched triangular solve is column-sequential and dominated the
+        Jacobi-preconditioned CR iteration)."""
         x = jnp.asarray(x)
         l = jnp.linalg.cholesky(x)
         a = solve_triangular(l, u, lower=True)

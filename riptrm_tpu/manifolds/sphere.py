@@ -4,7 +4,7 @@ Parity target: ``pymanopt.manifolds.sphere.Sphere`` as consumed by
 ``/root/reference/src/NonnegPCA/coordinator.py:41`` and the solvers
 (SURVEY.md §2.2).
 
-TPU-first: the orthonormal tangent basis is the first n-1 columns of the
+Design: the orthonormal tangent basis is the first n-1 columns of the
 Householder reflector mapping e_n to ±x — closed form, one outer product,
 instead of the reference's random-vector Gram-Schmidt
 (``/root/reference/src/solver/utils.py:388-397``).

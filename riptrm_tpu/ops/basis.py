@@ -4,7 +4,7 @@ Replaces the reference's sequential loops
 (``selfadj_operator2matrix``/``operator2matrix``/``tangent2vec``,
 ``/root/reference/src/solver/utils.py:532-580``): a dim x dim representing
 matrix is built with ONE ``vmap`` over coordinate directions (dim batched
-HVPs) followed by one batched projection — two MXU-friendly batched ops
+HVPs) followed by one batched projection — two batched matrix-shaped ops
 instead of O(dim^2) sequential inner products.
 """
 

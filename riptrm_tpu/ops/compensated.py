@@ -1,15 +1,15 @@
 """Compensated (double-word) f32 reductions for the batched-lane floor.
 
-Batched MXU-lane sweeps run the whole solver in f32; the inner-loop stall
+Batched sweeps run the whole solver in f32; the inner-loop stall
 floor is set by a handful of SCALAR reductions whose rounding noise is
 O(eps * magnitude * sqrt(m)) — chiefly the complementarity norm
 ``||y*c - mu||`` (each product rounds at eps*|y*c| ~ eps*mu near the
 central path, so the norm floors at eps*mu*sqrt(m) even when the true
 residual is far smaller) and the ared barrier log-ratio sum (m tiny log
-terms accumulated across lanes).  Full emulated f64 costs ~230x per step
-(measured, BENCH.md) because it widens the elementwise bulk; these helpers
+terms accumulated across lanes).  Full f64 widens the elementwise bulk
+too; these helpers
 widen ONLY the reductions with error-free transformations (TwoSum / Dekker
-TwoProd) at a few extra VPU flops, all branch-free and vmap-friendly (no
+TwoProd) at a few extra elementwise flops, all branch-free and vmap-friendly (no
 sequential Kahan scan — the accumulation is a TwoSum tree with an O(eps^2)
 error channel).
 
@@ -64,7 +64,7 @@ def sum2(x, axis=-1):
     per-level errors are themselves accumulated, giving the result as if
     computed at twice the working precision (error O(eps|sum| + eps^2
     sum|x|)).  Fully vectorized — log2(m) unrolled levels, no scan — so it
-    vmaps over batch lanes at VPU speed."""
+    vmaps over batch lanes at elementwise speed."""
     x = jnp.moveaxis(x, axis, -1)
     err = jnp.zeros(x.shape[:-1], dtype=x.dtype)
     while x.shape[-1] > 1:

@@ -17,10 +17,10 @@ Returns the primal solution and both multiplier vectors, matching the
 CVXOPT outputs the reference consumes (``sol['x']``, ``sol['z']``,
 ``sol['y']``).
 
-TPU-first: fixed-shape dense linear algebra, ``lax.while_loop`` with
+Design: fixed-shape dense linear algebra, ``lax.while_loop`` with
 tolerance-based early exit — the whole solve stays inside the surrounding
 jitted solver step and batches cleanly under ``vmap`` (batched Cholesky /
-triangular solves hit the MXU; frozen lanes mask out via the while_loop
+triangular solves batch as matrix kernels; frozen lanes mask out via the while_loop
 batching rule).  ``warm_z`` warm-starts the dual from the surrounding SQP
 iteration's multipliers: near SQP convergence the start (x=0, s=max(h,eps),
 z=y_prev) is already primal-feasible with a near-stationary dual, cutting
@@ -57,12 +57,12 @@ class QpResult(NamedTuple):
 # cond ~1e14 at n~1000, i.e. anything f64 can resolve; warm starts and
 # per-IPM-iteration refreshes need 1-3, so the warm sweep gets a small
 # budget (WARM_MAX) and a stale inverse fails fast to the scaled-identity
-# reset instead of burning 64 n^3 sweeps in vmap lockstep (ADVICE r3).
+# reset instead of burning 64 n^3 sweeps in vmap lockstep.
 # An inverse is USABLE only at err <= sqrt(TOL): below that the two
 # Richardson refinement sweeps leave a relative direction error
 # ~ err^3 <= 3.2% — a budget-exhausted sweep stuck at err in
 # (sqrt(TOL), 1] used to slip through the old err <= 1 gate and burn the
-# IPM's remaining maxiter on near-useless O(1)-error steps (ADVICE r3).
+# IPM's remaining maxiter on near-useless O(1)-error steps.
 _SCHULZ_TOL = 0.1
 _SCHULZ_MAX = 64
 _SCHULZ_WARM_MAX = 8
@@ -97,10 +97,9 @@ def solve_qp(Q, p, G, h, A=None, b=None, *, abstol=1e-10, reltol=1e-10,
     solves each Newton system as dx = X rhs plus two Richardson refinement
     sweeps (relative direction error ~ ||I-XM||^3 ~ 1e-6 at the working
     residual).  Everything is batched [n,n] matmuls, so under ``vmap`` the
-    whole QP rides the MXU and aggregate throughput SCALES with batch
+    whole QP is batched matrix products and aggregate throughput SCALES with batch
     width — unlike the 'chol' path, whose batched Cholesky is
-    column-sequential and scales O(B) (the measured ~69 solves/s RSQO
-    ceiling, BENCH.md round-3 notes).  ``xinv0`` warm-starts X from the
+    column-sequential and scales O(B).  ``xinv0`` warm-starts X from the
     previous QP of an SQP sequence (pass ``QpResult.xinv`` back in; an
     all-zero ``xinv0`` means cold — X starts at I/||M||_inf and the first
     IPM iteration pays the ~log2(cond) bootstrap).  A refresh that fails
@@ -177,7 +176,7 @@ def solve_qp(Q, p, G, h, A=None, b=None, *, abstol=1e-10, reltol=1e-10,
         Returns (X, err) with err <= _SCHULZ_USABLE iff the inverse is
         usable.
 
-        Two-phase budget (ADVICE r3): the warm sweep gets WARM_MAX=8
+        Two-phase budget: the warm sweep gets WARM_MAX=8
         updates — a healthy carried inverse converges in 1-3, a stale one
         fails fast instead of burning the full 64 in vmap lockstep — and
         the second sweep either CONTINUES a slowly-contracting warm X or
@@ -325,7 +324,7 @@ def solve_qp(Q, p, G, h, A=None, b=None, *, abstol=1e-10, reltol=1e-10,
         # NaN-freeze: in f32 the factorization of a rounding-indefinite
         # Newton matrix yields NaN steps; without this guard a poisoned
         # lane never satisfies converged() and burns the FULL maxiter in
-        # lockstep with healthy lanes (measured on a v5e RSQO sweep:
+        # lockstep with healthy lanes (seen in batched RSQO sweeps:
         # 400-iteration burns vs 4-8 for healthy lanes, every SQP step).
         # Freeze at the LAST FINITE iterate instead: status 2, the caller
         # gets a usable approximate solution.
@@ -339,7 +338,7 @@ def solve_qp(Q, p, G, h, A=None, b=None, *, abstol=1e-10, reltol=1e-10,
             # A Schulz refresh that exhausted its budget above the usable
             # threshold (even after the identity reset) means the
             # direction carries O(err^3) > few-% relative error: freeze
-            # exactly like a NaN factorization would (ADVICE r3 — the old
+            # exactly like a NaN factorization would (the old
             # err <= 1 gate let a lane burn its remaining maxiter on
             # near-useless steps at extreme late-IPM conditioning).
             ok = ok & (schulz_err <= _SCHULZ_USABLE)
@@ -395,7 +394,7 @@ def solve_qp(Q, p, G, h, A=None, b=None, *, abstol=1e-10, reltol=1e-10,
         ),
     )
     if use_polish:
-        # 'schulz_polish' (VERDICT r4 item 8): the schulz loop floors at
+        # 'schulz_polish': the schulz loop floors at
         # O(err^3) ~ 1e-6-relative direction error — measured 3.3e-7 KKT
         # floor vs the 3.3e-15 deep-parity targets.  Polish with up to 3
         # EXACT partial-pivot-LU IPM iterations from the schulz endpoint:

@@ -2,9 +2,9 @@
 
 Parity targets: ``hessianspectrum`` (``/root/reference/src/solver/utils.py:417-475``)
 and ``operatorspectrum`` (``utils.py:477-530``), which route through SciPy's
-ARPACK ``eigs`` on a LinearOperator — unavailable under jit/TPU.
+ARPACK ``eigs`` on a LinearOperator — unavailable under jit on an accelerator.
 
-TPU-first replacements:
+Jittable replacements:
 * ``operator_spectrum``: materialize the (self-adjoint) operator in the
   deterministic metric-orthonormal basis with one batched vmap and run a
   symmetric ``eigh`` — exact, O(dim) operator applications, ideal for the

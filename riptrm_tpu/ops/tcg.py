@@ -176,5 +176,6 @@ def truncated_cg(
             done=done_now,
         )
 
-    st = jax.lax.while_loop(cond, body, st0)
+    with jax.named_scope("tcg"):  # names the loop's kernels in traces
+        st = jax.lax.while_loop(cond, body, st0)
     return st.eta, st.Heta, st.j, st.code

@@ -2,9 +2,9 @@
 
 Parity target: ``TRSgep`` (``/root/reference/src/solver/RIPTRM.py:218-299``),
 which solves min 0.5 x'Ax + a'x s.t. x'Bx <= Del^2 through a 2n x 2n
-*generalized nonsymmetric* eigenproblem — an operation with no TPU kernel.
+*generalized nonsymmetric* eigenproblem — costly, and without a batched accelerator kernel.
 
-TPU-first re-design: the solver operates in metric-orthonormal coordinates
+Re-design: the solver operates in metric-orthonormal coordinates
 (B = I by construction), so one symmetric ``eigh`` of A plus a safeguarded
 Newton iteration on the secular equation gives the global solution,
 including the hard case, entirely inside jit with static shapes.
@@ -101,10 +101,10 @@ def solve_trs_ms(A, a, radius, *, lanczos_iters=32, newton_iters=48,
     """Global TRS solution by safeguarded Moré-Sorensen iteration —
     Cholesky factorizations instead of a dense eigendecomposition.
 
-    Measured on a v5e at n=999 f32: ``eigh`` costs 28.9 ms while
-    ``cholesky`` costs 0.154 ms (188x) and a 64-step dense Lanczos 0.2 ms
-    (BENCH.md linalg probe), so at large dim the eigh-based exact mode is
-    entirely eigh-bound.  This solver needs a handful of factorizations:
+    A dense ``eigh`` (tridiagonalization plus an iterative eigensolver)
+    costs far more than one ``cholesky`` or a short dense Lanczos of the
+    same matrix, so at large dim the eigh-based exact mode is eigh-bound.
+    This solver needs a handful of factorizations:
 
     1. lambda extremes estimated by dense Lanczos (Ritz values; the min
        approaches lambda_1 from above, so PD/shift decisions are CERTIFIED

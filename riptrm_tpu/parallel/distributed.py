@@ -1,10 +1,10 @@
 """Multi-host initialization and sweep sharding.
 
 The reference has no distributed backend (SURVEY.md §2.3) — its scale-out
-is Hydra multirun forking OS processes.  TPU-native scale-out:
+is Hydra multirun forking OS processes.  Scale-out here:
 
-* ``initialize()`` wires ``jax.distributed`` (ICI within a slice, DCN
-  across hosts); call once per host process before any computation.
+* ``initialize()`` wires ``jax.distributed`` (device interconnect within
+  a host, the network across hosts); call once per host process before any computation.
 * ``host_shard(items)`` splits sweep work (instance x initial-point x
   solver jobs) across hosts for host-driven runs — coarse-grained DP over
   DCN, matching the multirun semantics with no cross-host chatter.

@@ -1,14 +1,14 @@
 """Parallel sweep execution: vmap within a chip, shard_map across the mesh.
 
 The reference's only concurrency is Hydra multirun forking one OS process
-per (instance, initial point, solver) combination (SURVEY.md §2.3).  The
-TPU-native equivalent: the sweep axes become a *batch axis* —
+per (instance, initial point, solver) combination (SURVEY.md §2.3).  Here
+the sweep axes become a *batch axis* —
 
 * ``vmap`` batches whole compiled solves over stacked initial points on one
   chip (the solver state machines are pure, so masked lockstep batching is
   free);
 * ``shard_map`` over a ``Mesh`` axis ``dp`` distributes the batch across
-  chips, with convergence-stat reductions riding ICI collectives;
+  devices, with convergence-stat reductions as collectives;
 * for large single instances, problem data (e.g. NonnegPCA's Z matrix) is
   sharded over a ``tp`` axis with ``NamedSharding`` so XLA partitions the
   Hessian-vector matvecs and inserts the collectives.
@@ -32,10 +32,10 @@ def _batched_exact_defaults(option):
 
     Under vmap the eigh-cache ``lax.cond`` lowers to select, so the cached
     eigendecomposition that makes the eigh TRS fast in single-lane solves
-    is DEAD WEIGHT in a sweep (the batched eigh runs every step) — the
-    Moré-Sorensen TRS wins at every dim there (measured on a v5e, n=200
-    B=16: 40.3 certified solves/s ms vs 10.9 eigh at the same 1.7e-4
-    floor; n=500 B=16: 21.5).  Default ``exact_trs_method`` to 'ms' for
+    is DEAD WEIGHT in a sweep (the batched eigh runs every step), so the
+    Cholesky-based Moré-Sorensen TRS is the cheaper batched default (one
+    factorization per Newton step instead of a full eigendecomposition;
+    not yet measured on the GPU).  Default ``exact_trs_method`` to 'ms' for
     batched builders unless the caller set it explicitly ('auto' keeps the
     dim-256 crossover for single-lane host runs, where the cache is live).
     """
@@ -110,7 +110,7 @@ def batched_riptrm_solve(problem, option, max_steps: int):
 def batched_riptrm_continue(problem, option, max_steps: int):
     """vmapped compiled RIPTRM solve CONTINUING from prior final states.
 
-    Phase 2 of a staged-precision sweep (VERDICT r3 item 5): re-enters the
+    Phase 2 of a staged-precision sweep: re-enters the
     compiled solve at each lane's frozen (x, y, mu, tr) so the barrier
     schedule resumes where phase 1 stalled, with the outer/inner counters
     and the inner-reset anchors re-seeded (phase 1 typically spent part of
@@ -148,11 +148,11 @@ def staged_precision_riptrm_solve(problem_lo, problem_hi, option_lo,
                                   option_hi, max_steps: int):
     """Two-phase staged-matvec-precision batched solve, ONE jit program.
 
-    Phase 1 runs the cheap-matvec program (``problem_lo``, e.g. bf16x3
-    'high') to its f32 residual floor; phase 2 CONTINUES every lane under
-    the expensive-matvec program (``problem_hi``, e.g. bf16x6 'highest')
-    with the tighter tolerances/floors of ``option_hi``.  This is the
-    TPU-correct form of "escalate matvec precision once mu is small":
+    Phase 1 runs the cheap-matvec program (``problem_lo``, e.g. 'high')
+    to its f32 residual floor; phase 2 CONTINUES every lane under the
+    expensive-matvec program (``problem_hi``, e.g. 'highest') with the
+    tighter tolerances/floors of ``option_hi``.  This is the batched form
+    of "escalate matvec precision once mu is small":
     in-graph mu-gating is useless for batched sweeps — vmap turns
     ``lax.cond`` into ``select`` so BOTH precision branches would execute
     every step (CLAUDE.md batching economics) — while phase-splitting
@@ -176,17 +176,16 @@ def staged_precision_riptrm_compacted(
     problem_lo, problem_hi, option_lo, option_hi, max_steps: int,
     segment_steps: int = 100, stall_rtol: float = 1e-2,
 ):
-    """Staged-precision solve with CONVERGED-LANE COMPACTION (VERDICT r4
-    item 4): phase 2 runs as host-driven segments, and between segments
+    """Staged-precision solve with CONVERGED-LANE COMPACTION: phase 2 runs as host-driven segments, and between segments
     still-running lanes are gathered into a smaller dense batch so lanes
-    that already hit the bf16x6 floor stop burning lockstep budget (the
+    that already hit the 'highest' floor stop burning lockstep budget (the
     round-4 one-jit staged program ran ALL lanes for the full continuation
     budget — a 30x throughput penalty once most lanes had floored).
 
     The active batch is rounded up to the next power of two (padding by
     repeating an active lane) so at most log2(B) distinct programs
-    compile — remote TPU compiles are expensive (CLAUDE.md), unbounded
-    shape churn would eat the savings.
+    compile — unbounded shape churn would spend the savings on
+    compilation.
 
     A lane leaves the active set when it (a) reaches ``option_hi``'s
     tolresid, or (b) improves by less than ``stall_rtol`` relative over a
@@ -243,8 +242,7 @@ def staged_precision_riptrm_compacted(
 
 def batched_ripm_continue(problem, option, max_steps: int):
     """vmapped compiled RIPM solve CONTINUING from prior final RipmStates
-    (phase 2 of a staged-precision sweep, VERDICT r4 item 3 — the RIPTRM
-    two-phase pattern generalizes: phase boundaries are program
+    (phase 2 of a staged-precision sweep — the RIPTRM two-phase pattern generalizes: phase boundaries are program
     boundaries).  The iteration counter is re-seeded and the merit /
     centering scalars (phi, sigma, rho, tau_1, tau_2) are RECOMPUTED
     under the new program — the continuation problem's matvec precision
@@ -282,7 +280,7 @@ def staged_precision_ripm_solve(problem_lo, problem_hi, option_lo,
     program (the RIPM port of ``staged_precision_riptrm_solve`` — same
     economics: in-graph precision gating is useless under vmap, so the
     escalation is a program boundary).  Phase 1 runs ``problem_lo``
-    (e.g. bf16x3 'high' matvecs) to its floor; phase 2 continues every
+    (e.g. 'high' matvecs) to its floor; phase 2 continues every
     lane under ``problem_hi`` (e.g. 'highest') with ``option_hi``'s
     tighter Krylov/residual tolerances.
 
@@ -472,9 +470,9 @@ def protocol_single(problem, solver_name: str, option, max_steps: int):
 
     Same plumbing as ``batched_protocol_sweep`` but without the vmap: the
     compiled program is the scalar-lane one whose trajectories reproduce
-    the host protocol exactly (BENCH.md: the batched StableIdentification
-    RSQO lane that diverges under vmap re-reaches its 7.95e-15 target
-    unbatched — vmapped lanes see different reduction orderings at chaotic
+    the host protocol exactly (a batched StableIdentification RSQO lane
+    that diverges under vmap re-reaches its 7.95e-15 target unbatched in
+    float64 on the CPU — vmapped lanes see different reduction orderings at chaotic
     accept/reject plateaus, CLAUDE.md invariants).
 
     Returns a jitted fn (x0, y0, target) -> (x, ineq_mult, steps, best).
@@ -499,7 +497,7 @@ def instance_batched_riptrm(option, max_steps: int, problem_builder=None):
 
     The problem is constructed inside the vmapped function, so the instance
     data is a traced, batched argument — instances and starts fuse into one
-    MXU-batched compiled solve.
+    batched compiled solve.
 
     ``problem_builder(instance_data, x0) -> Problem`` defaults to NonnegPCA
     (instance_data = Z); any family works as long as its data and points

@@ -82,10 +82,6 @@ def make_problem(Z, x0, y0=None, bound: float = 0.8, dtype=None, weights=None) -
         num_ineq=m,
         num_eq=0,
         manvio=manvio,
-        # Unlocks the fused Pallas tCG (ops/pallas_kernels.py
-        # ::tcg_stiefel_bound): weighted quadratic cost + elementwise
-        # bound constraints on St(n, p).
-        structure={"kind": "stiefel_bound", "Zs": Zs, "bound": b, "d": d},
     )
 
 

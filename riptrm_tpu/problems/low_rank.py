@@ -92,7 +92,8 @@ def load_problem(dataset_path: str, initialpoint: str = "a", lb: float = 0.0, dt
 def generate_instance(key, m: int, n: int, rank: int, noise: float = 0.01):
     """Nonnegative rank-``rank`` target A = W @ H' (entrywise |N(0,1)|
     factors) plus elementwise noise — an NMF-style recovery target.  Runs on
-    the CPU backend (data generation is not a hot path)."""
+    the CPU backend, so a seed gives bit-identical instances on every
+    machine."""
     cpu = local_cpu()
     key = jax.device_put(key, cpu)
     with jax.default_device(cpu):

@@ -5,7 +5,7 @@ Parity targets: ``/root/reference/src/NonnegPCA/coordinator.py`` (cost
 initial points :34-54, dual init :57-65) and ``simulator.py`` (sphere
 manifold-violation ||x|| - 1, :12-14).
 
-TPU-first: the n per-element constraints are one stacked function
+Design: the n per-element constraints are one stacked function
 g(x) = -x, so all constraint derivatives are trivial index-free tensor ops.
 """
 
@@ -23,10 +23,10 @@ from riptrm_tpu.utils.devices import local_cpu
 
 
 def make_problem(Z, x0, y0=None, dtype=None, matmul_precision=None) -> Problem:
-    """``matmul_precision``: None uses the backend default (bf16 passes on
-    the TPU MXU for batched lanes); 'highest' forces full-f32 matmuls —
+    """``matmul_precision``: None uses the backend default (on a GPU an
+    f32 matmul may run in TF32); 'highest' forces full-f32 matmuls —
     needed when f32 batched sweeps must reach tight KKT tolerances
-    (see BENCH.md precision notes)."""
+    (PERF.md, precision on the H100)."""
     # TP axis: a caller that device_put Z with a NamedSharding (e.g. the
     # dryrun's P("tp", None) row sharding) gets the sharding RE-PINNED
     # IN-GRAPH below — jax.jit does NOT honor committed shardings of
@@ -97,12 +97,12 @@ def generate_instance(key, dim: int, snr: float = 0.5, delta: float = 0.7):
     """Spiked-covariance instance (reference ``generator.py:9-31``).
 
     Returns dict of arrays matching the dataset CSV contract.  Runs on the
-    CPU backend: data generation is not a hot path and remote-TPU compiles
-    of these one-shot graphs are slow and uncached.
+    CPU backend, so a seed gives bit-identical instances on every machine
+    (matching ``dataset/`` and ``dataset/_cache``).
     """
     cpu = local_cpu()
-    # device_put the key too: a TPU-resident key would drag every eager op
-    # back to the remote TPU backend despite default_device.
+    # device_put the key too: a device-resident key would pull every eager
+    # op back onto the default device despite default_device.
     key = jax.device_put(key, cpu)
     with jax.default_device(cpu):
         return _generate_instance(key, dim, snr, delta)
@@ -125,7 +125,7 @@ def _generate_instance(key, dim, snr, delta):
 
 def generate_initialpoint(key, dim: int, feasible: bool = True):
     """Random unit-norm initial point (reference ``generator.py:34-54``).
-    Runs on the CPU backend like every generator here (CLAUDE.md)."""
+    Runs on the CPU backend like every generator here."""
     cpu = local_cpu()
     with jax.default_device(cpu):
         x0 = jax.random.uniform(jax.device_put(key, cpu), (dim,))

@@ -47,10 +47,11 @@ class Problem:
     manvio: Callable[[PyTree], Any] = None
     # Extra per-iteration metrics, (problem, x, y, z, eval_dict) -> eval_dict
     callback: Callable = None
-    # Optional structure metadata enabling fused fast paths, e.g.
-    # {"kind": "sphere_quadratic", "Zs": <sym matrix>} unlocks the Pallas
-    # fused tCG kernel (ops/pallas_kernels.py) for sphere problems with
-    # quadratic cost and elementwise nonnegativity constraints.
+    # Optional structure metadata enabling closed-form fast paths, e.g.
+    # {"kind": "sphere_quadratic", "Zs": <sym matrix>} lets RIPTRM's exact
+    # mode and RSQO materialize the Hessian by one O(n^2) congruence for
+    # sphere problems with quadratic cost and elementwise nonnegativity
+    # constraints.
     structure: Optional[dict] = None
 
     def __post_init__(self):

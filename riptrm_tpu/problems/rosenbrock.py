@@ -4,7 +4,7 @@ Parity targets: ``/root/reference/src/Rosenbrock/coordinator.py`` (cost
 :44-52, constraints :58-71, x0 :78-84) and ``simulator.py`` (second-order
 residual callback :60-105, rank-based manifold violation :107-114).
 
-TPU-first notes:
+Design notes:
 * The chained Rosenbrock sum is one shifted-difference reduction, not a
   Python loop over nk scalars.
 * The second-order-residual callback (min eigenvalue of Hess L restricted

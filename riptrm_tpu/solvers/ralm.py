@@ -228,11 +228,10 @@ def solve_compiled_best(problem, option, max_steps: int):
     NonnegPCA: 3.96e-4 dip -> 0.69 final).  The reference's analyzer
     notebooks (``src/*/analyzer.ipynb``) plot the FULL residual
     trajectory, so the dip is what a reader scores there; best-iterate
-    reporting matches that reading (ADVICE r4: the reference has no
-    scalar best-within-budget metric — the attribution is to the
-    trajectory plots, not an analyzer computation).  Final-state
-    reporting misread RALM as "stalled at 0.62" on chip sweeps (VERDICT
-    r3 item 6).  Set False for strict last-iterate semantics; sweep
+    reporting matches that reading (the reference has no scalar
+    best-within-budget metric — the attribution is to the trajectory
+    plots, not an analyzer computation).  Final-state reporting misread
+    RALM as "stalled at 0.62" in batched sweeps.  Set False for strict last-iterate semantics; sweep
     harnesses surface the choice as ``point="best"|"final"`` in their
     output rows."""
     from riptrm_tpu.ops.kkt import compute_residual

@@ -9,12 +9,12 @@ Parity target: ``/root/reference/src/solver/RIPM.py``:
 * sigma/rho/gamma updates               RIPM.py:680-683
 * checkNTequation self-verification     RIPM.py:521-628
 
-TPU-first notes:
+Design notes:
 * The constraint-gradient matrix G (rows = coords of rgrad g_i) is one
   vmapped vjp; the saddle system is dense in metric-orthonormal
   coordinates and solved with a single ``linalg.solve``.
 * ``checkNTequation`` builds the full covariant-derivative matrix from the
-  same blocks; its non-symmetric eigenvalues (no TPU kernel) go through
+  same blocks; its non-symmetric eigenvalues (no batched accelerator kernel) go through
   ``pure_callback`` to the host, as this is an explicitly debug-only path.
 """
 

@@ -1,6 +1,6 @@
 """RIPTRM: Riemannian primal-dual Interior Point Trust-Region Method.
 
-TPU-native re-design of the paper's solver
+Accelerator-native re-design of the paper's solver
 (``/root/reference/src/solver/RIPTRM.py``, arXiv:2501.15419).  Algorithmic
 parity targets (file:line into /root/reference):
 
@@ -11,7 +11,7 @@ parity targets (file:line into /root/reference):
 * inner budget reset semantics    RIPTRM.py:785-847
 * outer barrier schedule          RIPTRM.py:866-896
 
-TPU-first design decisions:
+Design decisions:
 * The inner x outer loop nest is flattened into ONE pure ``step``: an inner
   trust-region iteration whose "converged" branch also applies the outer
   barrier-parameter update.  The same step powers (a) a host-driven runner
@@ -23,7 +23,7 @@ TPU-first design decisions:
 * Exact mode materializes Hw with one batched vmap over the deterministic
   tangent basis and solves the TRS by symmetric eigendecomposition
   (``ops/trs.py``) instead of a 2n x 2n generalized nonsymmetric
-  eigenproblem, which has no TPU kernel.
+  eigenproblem; the symmetric form is far cheaper and batches under vmap.
 * Branching (converged / infeasible / accept / reject) is data-dependent and
   expressed with ``lax.cond``/``jnp.where`` so the whole step is one XLA
   program.
@@ -105,9 +105,9 @@ def default_option():
         "TRS_solver": "Exact_RepMat",  # or 'tCG'
         # Exact-mode TRS algorithm: 'eigh' (dense eigendecomposition — the
         # reference-faithful route), 'ms' (safeguarded More-Sorensen by
-        # Cholesky + dense-Lanczos extremes — measured 188x cheaper per
-        # factorization than eigh at n=999 on a v5e, BENCH.md), or 'auto'
-        # (ms at dim >= 256 where eigh dominates the step, eigh below).
+        # Cholesky + dense-Lanczos extremes: one Cholesky per Newton step
+        # instead of a full eigendecomposition), or 'auto' (ms at
+        # dim >= 256, where eigh dominates the step, eigh below).
         "exact_trs_method": "auto",
         "second_order_stationarity": True,
         # tCG mode checks the second-order criterion matrix-free: Lanczos
@@ -128,16 +128,11 @@ def default_option():
         "const_left": 0.5,
         "const_right": 1e20,
         "checkTRSoptimality": False,
-        # TPU-only: run the whole tCG loop as one fused Pallas kernel when
-        # the problem carries matching structure metadata (VMEM-resident
-        # subproblem; float32).
-        "use_pallas_tcg": False,
         # Compensated (double-word f32) forms of the two scalar reductions
         # that set the batched-lane stall floor: the complementarity norm
         # (TwoProd/TwoSum + compensated tree sum) and the ared barrier
         # log-ratio term (log1p of the exact relative slack move).  A few
-        # extra VPU flops per step; see ops/compensated.py and the BENCH.md
-        # floor measurements.
+        # extra elementwise flops per step; see ops/compensated.py.
         "compensated_reductions": False,
         "verbosity": 0,
         "save_inner_iteration": True,
@@ -231,45 +226,9 @@ def make_step(problem, option):
     ff_second = option["forcing_function_second_order"]
     inner_maxiter = option["inner_maxiter"]
 
-    # Fused Pallas tCG (TPU): gate statically and build the custom_vmap
-    # wrapper once so batched sweeps route through the shared-Z batched
-    # kernel (ops/pallas_kernels.py::tcg_sphere_quadratic /
-    # tcg_stiefel_bound).
-    use_pallas = False
-    pallas_kind = (
-        problem.structure.get("kind")
-        if (not exact and option["use_pallas_tcg"] and problem.structure)
-        else None
-    )
-    if pallas_kind == "sphere_quadratic":
-        from riptrm_tpu.ops.pallas_kernels import fits_in_vmem, tcg_sphere_quadratic
-
-        use_pallas = fits_in_vmem(man.dim + 1)
-        if use_pallas:
-            pallas_tcg = tcg_sphere_quadratic(
-                maxinner=man.dim,
-                mininner=option["tCG_mininner"],
-                theta=option["tCG_theta"],
-                kappa=option["tCG_kappa"],
-            )
-    elif pallas_kind == "stiefel_bound":
-        from riptrm_tpu.ops.pallas_kernels import (
-            fits_in_vmem_stiefel,
-            tcg_stiefel_bound,
-        )
-
-        use_pallas = fits_in_vmem_stiefel(man.n, 1, man.p)
-        if use_pallas:
-            pallas_tcg_st = tcg_stiefel_bound(
-                maxinner=man.dim,
-                mininner=option["tCG_mininner"],
-                theta=option["tCG_theta"],
-                kappa=option["tCG_kappa"],
-            )
-
     def _dense_ritz(h_mat):
-        """Extreme Ritz estimates of a dense materialized Hw (cheap: 32
-        dense matvecs ~ 0.2 ms at n=999 on a v5e vs eigh's 28.9 ms)."""
+        """Extreme Ritz estimates of a dense materialized Hw (32 dense
+        matvecs, far cheaper than an eigh of the same matrix)."""
         from riptrm_tpu.ops.spectrum import lanczos
 
         dt = h_mat.dtype
@@ -372,34 +331,17 @@ def make_step(problem, option):
             dxtype = trs_code
             tcg_iters = jnp.asarray(0, jnp.int32)  # exact mode: no tCG
         else:
-            if use_pallas and pallas_kind == "sphere_quadratic":
-                zs = problem.structure["Zs"]
-                dt = state.y.dtype
-                dx, h_dx, tcg_iters, tcg_code = pallas_tcg(
-                    zs, x, y / c, cx, tr_radius
-                )
-                dx = dx.astype(dt)
-                h_dx = h_dx.astype(dt)
-            elif use_pallas and pallas_kind == "stiefel_bound":
-                zs = problem.structure["Zs"]
-                dt = state.y.dtype
-                dx, h_dx, tcg_iters, tcg_code = pallas_tcg_st(
-                    zs, problem.structure["d"], x, y, c, cx, tr_radius
-                )
-                dx = dx.astype(dt)
-                h_dx = h_dx.astype(dt)
-            else:
-                dx, h_dx, tcg_iters, tcg_code = truncated_cg(
-                    man,
-                    x,
-                    hw,
-                    cx,
-                    tr_radius,
-                    theta=option["tCG_theta"],
-                    kappa=option["tCG_kappa"],
-                    mininner=option["tCG_mininner"],
-                    maxinner=dim,
-                )
+            dx, h_dx, tcg_iters, tcg_code = truncated_cg(
+                man,
+                x,
+                hw,
+                cx,
+                tr_radius,
+                theta=option["tCG_theta"],
+                kappa=option["tCG_kappa"],
+                mininner=option["tCG_mininner"],
+                maxinner=dim,
+            )
             hw_dx_dx = man.inner(x, dx, h_dx)
             cx_dx = man.inner(x, cx, dx)
             dxtype = 10 + tcg_code

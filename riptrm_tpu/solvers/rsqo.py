@@ -9,7 +9,7 @@ Parity target: ``/root/reference/src/solver/RSQO.py``:
 * ell_1-penalty backtracking line search  RSQO.py:229-247
 * penalty update rho <- upsilon + tau     RSQO.py:220-227
 
-TPU-first: Hessian materialization is one batched vmap over the
+Design: Hessian materialization is one batched vmap over the
 deterministic basis; the constraint matrix G is one vmapped vjp; the QP is
 our jittable Mehrotra IPM, so the whole step is a single XLA program.
 """
@@ -49,7 +49,7 @@ def default_option():
         "quadoptim_reltol": 1e-12,
         "quadoptim_feastol": 1e-12,
         # Warm-start each QP's dual from the SQP iterate's multipliers
-        # (2.1x batched throughput, BENCH.md).  False = reference-parity
+        # (fewer IPM iterations per QP).  False = reference-parity
         # cold start (CVXOPT cold-starts every QP, RSQO.py:196-208): the
         # warm start perturbs the approximate QP solution within its
         # tolerance, which over 10^4 SQP steps at 1e-15-deep residual
@@ -86,12 +86,11 @@ class RsqoState(NamedTuple):
 
 def _shift_regularize(q, thld, corr):
     """PD regularization by certified diagonal shift (quadoptim_type
-    ``reghess_shift``) — the TPU-fast alternative to the reference's
+    ``reghess_shift``) — the batch-friendly alternative to the reference's
     eigenvalue clamp (``RSQO.py:126-131``).
 
-    The clamp needs a full eigh every SQP step, which dominates batched
-    sweeps on TPU (measured 18.3 ms/step for 16 lanes of dim=199 on a v5e —
-    more than the rest of the step combined).  Here: the extreme
+    The clamp needs a full eigh every SQP step, the most expensive
+    operation of a batched step.  Here: the extreme
     eigenvalues are estimated with one short dense Lanczos (k=12 matvecs —
     replaces the original 36 sequential power iterations at better
     accuracy; Ritz extremes converge geometrically where power iteration
@@ -337,12 +336,12 @@ def init_state(problem, option):
     # solve_qp output — comes back in).  Deriving qp_xinv's dtype from y0
     # instead flipped the compiled while_loop carry dtype after the first
     # step on problems where y0's dtype differs from the coordinate dtype
-    # (e.g. m == 0 under mixed precision) — ADVICE r3.
+    # (e.g. m == 0 under mixed precision).
     x_leaves = jax.tree.leaves(problem.x0)
     dtype = (
         jnp.result_type(*x_leaves) if x_leaves else jnp.asarray(1.0).dtype
     )
-    # Refuse a LOSSY dual cast (ADVICE r4): f64 duals with f32
+    # Refuse a LOSSY dual cast: f64 duals with f32
     # coordinates must not be silently truncated.  (Promoting instead
     # would desync the while_loop carry — the QP outputs follow the
     # coordinate dtype — so the mixed case is an error the caller fixes

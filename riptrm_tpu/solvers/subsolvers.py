@@ -7,7 +7,7 @@ Parity target: ``pymanopt.optimizers.SteepestDescent`` /
 search with optimism-based warm-started step size, stopping on
 ``min_gradient_norm`` / ``max_iterations`` / ``min_step_size``.
 
-TPU-first: the whole optimizer is one ``lax.while_loop`` (line search is a
+Design: the whole optimizer is one ``lax.while_loop`` (line search is a
 nested while_loop), so RALM's inner solve compiles into the outer step.
 """
 

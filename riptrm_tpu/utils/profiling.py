@@ -2,7 +2,7 @@
 
 The reference's profiling is vestigial (commented cProfile/line_profiler
 hooks, ``RIPTRM.py:6,908,1051``) plus wall-clock ``excluded_time``
-bookkeeping.  The TPU-native replacements:
+bookkeeping.  The replacements here:
 
 * ``trace(logdir)``: context manager around ``jax.profiler`` producing a
   TensorBoard-compatible device trace of the solver hot loop;

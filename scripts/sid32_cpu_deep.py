@@ -1,4 +1,4 @@
-"""StableIdentification d=32 deep-residual CPU/x64 run (VERDICT r4 item 2).
+"""StableIdentification d=32 deep-residual CPU/x64 run.
 
 Round 4 left the flagship-scale question open: the best residual ever
 recorded at d=32 was 0.123 (one f32 RIPM-Krylov chip lane; median 0.436),

@@ -1,8 +1,6 @@
-"""Conditioning analysis of the d=32 StableIdentification instance
-(BENCH.md round-5; VERDICT r4 item 2's "measured negative + conditioning
-analysis" arm).
+"""Conditioning analysis of the d=32 StableIdentification instance.
 
-Reads the SAME cached instance payload the chip sweeps and the CPU/x64
+Reads the SAME cached instance payload the batched sweeps and the CPU/x64
 deep run solve (``dataset/_cache/StableIdentification_s32_seed0_b8.npz``)
 and measures, per constrained entry of A, the width of the widest
 feasible segment — the corridor the barrier must operate in.  Every
@@ -12,8 +10,8 @@ semantics re-derived in ``problems/stable_identification.py::
 generate_constraints``), so near-zero true-A entries get proportionally
 razor corridors.  The output attributes the tightest corridors to their
 constraint type (onebox vs twobox/annulus) and records the width
-distribution; BENCH.md compares the deepest residual any solver reaches
-against the tightest corridor.
+distribution (``result/sid32_margins.json``), to compare the deepest
+residual any solver reaches against the tightest corridor.
 
     python scripts/sid32_margins.py [--npz dataset/_cache/...npz]
 """

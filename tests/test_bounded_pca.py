@@ -1,6 +1,8 @@
 """Bounded-coordinate PCA on Stiefel: all four solvers, incl. the dense
 exact/second-order path (St(n,p) has a closed-form basis)."""
 
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,8 @@ from riptrm_tpu.solvers.ralm import RALM
 from riptrm_tpu.solvers.ripm import RIPM
 from riptrm_tpu.solvers.riptrm import RIPTRM
 from riptrm_tpu.solvers.rsqo import RSQO
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 N, P, BOUND = 16, 2, 0.6
 
@@ -138,7 +142,7 @@ def test_batched_multistart_sweep(prob):
 
 
 def test_generate_and_load_roundtrip(tmp_path, monkeypatch):
-    monkeypatch.chdir("/root/repo")
+    monkeypatch.chdir(REPO_ROOT)
     from riptrm_tpu.experiment.generate import main
 
     out = str(tmp_path / "ds")

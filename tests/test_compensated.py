@@ -110,10 +110,9 @@ class TestComplementarityNorm:
         inputs is their representation error, ~eps*mu*sqrt(m).  The
         compensated norm must reproduce the f64-exact norm of those f32
         inputs to f32 roundoff — i.e. it adds NO noise of its own.  (The
-        naive VPU norm is only ~1% off here: for f32 inputs the input
+        naive norm is only ~1% off here: for f32 inputs the input
         representation error is the same order as the product-rounding
-        noise, which bounds what any reduction fix can buy — measured and
-        recorded in BENCH.md.)"""
+        noise, which bounds what any reduction fix can buy.)"""
         rng = np.random.default_rng(7)
         m = 4096
         mu = np.float32(3e-3)

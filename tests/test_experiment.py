@@ -2,12 +2,15 @@
 CSV contract, analyzer."""
 
 import os
+import pathlib
 
 import numpy as np
 import pandas as pd
 import pytest
 
 from riptrm_tpu.experiment.cfg import load_config, solver_options_from_cfg, sweep_configs
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def test_config_interpolation(tmp_path):
@@ -85,7 +88,7 @@ def test_solver_option_merge():
 
 def test_simulate_end_to_end(tmp_path, monkeypatch):
     """Full pipeline on the golden instance with a tiny budget."""
-    monkeypatch.chdir("/root/repo")
+    monkeypatch.chdir(REPO_ROOT)
     from riptrm_tpu.experiment.simulator import main
 
     out_dir = str(tmp_path / "out")
@@ -108,7 +111,7 @@ def test_simulate_end_to_end(tmp_path, monkeypatch):
 
 
 def test_generate_and_solve_roundtrip(tmp_path, monkeypatch):
-    monkeypatch.chdir("/root/repo")
+    monkeypatch.chdir(REPO_ROOT)
     from riptrm_tpu.experiment.generate import main
 
     out = str(tmp_path / "ds")
@@ -122,7 +125,7 @@ def test_generate_and_solve_roundtrip(tmp_path, monkeypatch):
 
 
 def test_generate_and_load_low_rank(tmp_path, monkeypatch):
-    monkeypatch.chdir("/root/repo")
+    monkeypatch.chdir(REPO_ROOT)
     from riptrm_tpu.experiment.generate import main
 
     out = str(tmp_path / "ds")

@@ -288,9 +288,9 @@ class TestStructuredMaterialize:
 class TestTRSMoreSorensen:
     """solve_trs_ms (Cholesky More-Sorensen) vs the eigh-based solve_trs.
 
-    Measured motivation (BENCH.md linalg probe): at n=999 f32 on a v5e,
-    eigh costs 28.9 ms while cholesky costs 0.154 ms, so exact mode at
-    large dim routes through this solver (`exact_trs_method='auto'`).
+    A Cholesky costs far less than an eigh of the same matrix, so exact
+    mode at large dim routes through this solver
+    (`exact_trs_method='auto'`).
     """
 
     def _compare(self, A, a, radius, rel_tol):

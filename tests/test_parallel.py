@@ -1,5 +1,7 @@
 """Multi-device sweep tests on the 8-device virtual CPU mesh
-(the TPU-native 'fake backend'; SURVEY.md §4)."""
+(a fake backend; SURVEY.md §4)."""
+
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,8 @@ from riptrm_tpu.parallel.sweep import (
     run_sweep,
 )
 from riptrm_tpu.problems import nonneg_pca
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 N = 16
 BATCH = 8
@@ -48,7 +52,7 @@ def test_vmapped_sweep_converges(setup):
 
 
 def test_staged_precision_sweep_deepens_floor(setup):
-    """Two-phase staged-precision solve (VERDICT r3 item 5): phase 2
+    """Two-phase staged-precision solve: phase 2
     continues phase-1 final states under a tighter-floor program and must
     reach a strictly deeper residual on every lane, without breaking the
     manifold invariant."""
@@ -100,7 +104,7 @@ def test_sharded_sweep_matches_vmap(setup):
 def test_graft_entry_contract():
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(REPO_ROOT))
     import __graft_entry__ as g
 
     fn, args = g.entry()
@@ -378,8 +382,7 @@ def test_batched_solver_sweep_baselines(setup, solver_name):
 def test_ralm_sweep_returns_best_point(setup):
     """RALM's KKT residual is non-monotone (clipped-multiplier/rho updates
     overshoot after the dip); the compiled sweep must hand back the BEST
-    iterate (VERDICT r3 item 6 — final-state reporting misread RALM as
-    stalled at ~0.6).  keep_best_point=False preserves the old
+    iterate (final-state reporting misread RALM as stalled at ~0.6).  keep_best_point=False preserves the old
     last-iterate semantics."""
     from riptrm_tpu.parallel.sweep import batched_solver_sweep
 
@@ -426,7 +429,7 @@ def test_batched_protocol_sweep_time_to_target(setup):
 
 def test_batched_exact_defaults_to_ms():
     """Batched builders default exact_trs_method to 'ms' (the vmapped eigh
-    cache is select-dead; measured 3.7x, BENCH.md) unless the caller sets
+    cache is select-dead) unless the caller sets
     it; non-exact options pass through untouched."""
     from riptrm_tpu.parallel.sweep import _batched_exact_defaults
 
@@ -627,7 +630,7 @@ def test_certify_ratio_cap_flags_infeasible_lanes(setup):
 
 
 def test_staged_precision_compacted_matches_floor():
-    """Lane compaction (VERDICT r4 item 4): the host-segmented staged
+    """Lane compaction: the host-segmented staged
     solve must reach the same residual class as a plain staged phase-2
     while letting converged/floored lanes exit the active set early."""
     import numpy as np

@@ -1,4 +1,4 @@
-"""RIPM Jacobi-Theta preconditioned condensed CR (VERDICT r4 item 3).
+"""RIPM Jacobi-Theta preconditioned condensed CR.
 
 The preconditioner must change ONLY the Krylov inner solve, not the
 Newton fixed point: at tight Krylov tolerance the preconditioned and

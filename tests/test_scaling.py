@@ -30,7 +30,7 @@ OPTION = {
 def test_sweep_rate_runs_and_converges(small_problem):
     mesh = make_mesh({"dp": 2}, jax.devices()[:2])
     rate, med, mx = sweep_rate(
-        small_problem, OPTION, mesh, batch=4, max_steps=200, reps=(1, 2), tries=2
+        small_problem, OPTION, mesh, batch=4, max_steps=200, reps=2
     )
     assert rate > 0
     assert np.isfinite(med) and np.isfinite(mx)
@@ -44,7 +44,7 @@ def test_measure_weak_scaling_rows(small_problem):
         device_counts=[1, 2],
         per_device=2,
         max_steps=200,
-        reps=(1, 2),
+        reps=2,
     )
     assert [r["devices"] for r in rows] == [1, 2]
     assert rows[0]["efficiency"] == 1.0

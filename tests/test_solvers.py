@@ -107,7 +107,7 @@ class TestRSQO:
 
     def test_converges_schulz_qp(self, pca):
         """The factorization-free QP linear solve (quadoptim_linear_solver=
-        'schulz', the MXU batch-scaling chip path) must reach the same
+        'schulz', the batch-scaling matmul path) must reach the same
         optimum at the same depth as the Cholesky path on the golden
         instance."""
         out = RSQO(

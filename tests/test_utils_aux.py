@@ -2,6 +2,7 @@
 cases, analyzer CLI wiring."""
 
 import json
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -11,6 +12,8 @@ import pytest
 from riptrm_tpu.ops.qp import solve_qp
 from riptrm_tpu.parallel.distributed import host_shard
 from riptrm_tpu.utils.profiling import device_timer
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def test_device_timer():
@@ -87,7 +90,7 @@ class TestQPEdgeCases:
 
     def test_schulz_matches_chol(self):
         """method='schulz' (factorization-free Newton-Schulz inverse
-        maintenance, the MXU batch-scaling path) must agree with 'chol'
+        maintenance, the batch-scaling matmul path) must agree with 'chol'
         to solver tolerance on a moderately conditioned QP."""
         n, m = 30, 40
         rng = np.random.default_rng(7)
@@ -146,7 +149,7 @@ class TestQPEdgeCases:
         """A poisoned Newton system (here: NaN in Q) must freeze the lane
         at its last finite iterate with status 2 instead of burning the
         full maxiter and returning NaNs (the f32 batched-RSQO failure
-        mode, BENCH.md round-3)."""
+        mode)."""
         n = 4
         Q = jnp.eye(n).at[0, 0].set(jnp.nan)
         p = jnp.ones((n,))
@@ -171,7 +174,7 @@ class TestQPEdgeCases:
 
 def test_benchmark_summary_format(tmp_path, monkeypatch):
     """benchmark.main writes a JSON summary keyed problem/inst/pt/solver."""
-    monkeypatch.chdir("/root/repo")
+    monkeypatch.chdir(REPO_ROOT)
     import riptrm_tpu.experiment.benchmark as bm
 
     # tiny budget, one problem, one solver
@@ -260,7 +263,7 @@ class TestWandbHooks:
 
 
 def test_schulz_polish_reaches_lu_accuracy():
-    """'schulz_polish' (VERDICT r4 item 8): up to 3 exact-LU IPM polish
+    """'schulz_polish': up to 3 exact-LU IPM polish
     iterations from the schulz endpoint must close the O(err^3) schulz
     floor toward the 'lu' solution at near-schulz cost."""
     n, m = 30, 40
